@@ -1,6 +1,6 @@
 // Native host-side hot loops for cuclark_tpu.
 //
-// TPU-framework equivalents of the reference's native host components:
+// Equivalents of the reference's native host components:
 //  - record boundary scanning  (src/CuCLARK_hh.hh:1335-1551, OpenMP scanner)
 //  - 2-bit read packing        (src/CuCLARK_hh.hh:1608-1763, container packer)
 //  - rolling canonical k-mer extraction for DB build
@@ -371,7 +371,7 @@ int64_t build_cuckoo(const uint64_t* kmers, const uint32_t* labels,
 // row range.  stash_bits > 0: qs — choice 1 hashes into a SMALL stash
 // section of NBS = 1<<stash_bits rows appended at global rows
 // [NB, NB+NBS), so the online probe pays one cold main-table gather
-// plus one warm stash gather (BENCHNOTES.md round 3).  table/occ then
+// plus one warm stash gather.  table/occ then
 // cover NB+NBS rows; stash entries quotient against stash_bits.
 
 int64_t build_q4(const uint64_t* kmers, const uint32_t* labels, int64_t n,

@@ -1,6 +1,6 @@
-"""cuclark_tpu — TPU-native metagenomic read classifier.
+"""cuclark_tpu — GPU metagenomic read classifier in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of CuCLARK
+A from-scratch JAX/XLA rebuild of the capabilities of CuCLARK
 (CLARK-family CUDA classifier, reference: Funatiq/cuclark).  Offline it
 builds a database of target-specific canonical k-mers from reference
 genomes; online it streams FASTA/FASTQ reads, probes every overlapping
@@ -11,7 +11,7 @@ Nothing in here is a port: the chained hash table becomes a flat
 two-choice bucketed table gathered in one row per probe; the CUDA
 atomic scoreboard + warp compaction becomes a vectorized per-read
 label-match reduction; multi-GPU DB part swapping + P2P merge trees
-become mesh sharding + psum over ICI.
+become mesh sharding + psum over NVLink.
 """
 
 from cuclark_tpu.config import ClassifyConfig, DBConfig

@@ -158,6 +158,12 @@ def cmd_classify(args) -> int:
                          sample_factor=args.sfactor,
                          max_table_mb=args.max_table_mb,
                          stream_group=getattr(args, "stream_group", 8))
+    from cuclark_tpu import native
+
+    if not native.available():
+        print("warning: the native host module (csrc/host_ops.cpp) is "
+              "unavailable; scan, packing and CSV formatting run on the "
+              "slower numpy paths", file=sys.stderr)
 
     if args.num_processes or args.coordinator:
         if args.resume:
@@ -166,6 +172,7 @@ def cmd_classify(args) -> int:
                   "blocks shift as shards fill); re-running the file "
                   "from the start.", file=sys.stderr)
         return _classify_multiprocess(args, db, cfg)
+    _print_backend()
     mesh = _choose_mesh(args.devices, db, args.max_table_mb)
     if mesh is not None:
         print(f" - Mesh: {mesh.shape['data']} data x {mesh.shape['db']} db "
@@ -227,7 +234,8 @@ def _classify_multiprocess(args, db, cfg) -> int:
     from cuclark_tpu.parallel.mesh import make_global_mesh
 
     multihost.initialize(args.coordinator, args.num_processes,
-                         args.process_id)
+                         args.process_id, args.local_device_ids)
+    _print_backend()
     nproc = jax.process_count()
     from cuclark_tpu.memplan import plan_db_axis, resolve_table_budget_mb
 
@@ -241,8 +249,8 @@ def _classify_multiprocess(args, db, cfg) -> int:
 
         cfg = dataclasses.replace(cfg, max_table_mb=budget_mb)
     # db axis capped at the PER-PROCESS device count: it keeps the
-    # psum on ICI (make_global_mesh requirement) and leaves the data
-    # axis divisible by the process count; if the per-device shard
+    # psum within one host (make_global_mesh requirement) and leaves the
+    # data axis divisible by the process count; if the per-device shard
     # still exceeds the budget, the engine streams bucket-range parts
     # on top (cycles x devices x parts, src/CuClarkDB.cu:540-574).
     num_db = plan_db_axis(db.table.nbytes, budget_mb,
@@ -265,6 +273,16 @@ def _classify_multiprocess(args, db, cfg) -> int:
               f"{int(n / dt * 60.0) if dt > 0 else 0} objects/min. "
               f"({n} objects on process {jax.process_index()}).")
     return 0
+
+
+def _print_backend() -> None:
+    """Name the backend on stderr, so a run that fell back to the CPU
+    is visible."""
+    import jax
+
+    dev = jax.devices()[0]
+    print(f" - Backend: {dev.platform} ({dev.device_kind}) x "
+          f"{jax.device_count()}", file=sys.stderr)
 
 
 def _choose_mesh(devices: int, db, max_table_mb):
@@ -808,9 +826,9 @@ def _add_db_args(p):
                    help="target hash load factor [0.7]")
     p.add_argument("--no-widen-stash", action="store_true",
                    help="qs: do NOT widen the main table when the "
-                        "Poisson stash would exit the warm gather "
-                        "regime (halves table memory at GB scale, "
-                        "~1.5x slower probes; see BENCHNOTES round 4)")
+                        "Poisson stash would outgrow the cache-friendly "
+                        "size (halves table memory at GB scale; the "
+                        "probe-speed cost on the H100 is not measured)")
     p.add_argument("--build-ram-mb", type=int, default=4096,
                    help="host RAM budget for raw k-mer occurrences during "
                         "DB build; larger inputs spill to disk shards and "
@@ -821,25 +839,6 @@ def _add_db_args(p):
                         "re-streaming genomes")
 
 
-def _enable_compile_cache():
-    """Persistent XLA compilation cache: repeat CLI invocations skip the
-    multi-second jit compiles (the dominant cold-start cost on TPU)."""
-    import os
-
-    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
-        return
-    try:
-        import jax
-
-        cache = os.path.join(os.path.expanduser("~"), ".cache",
-                             "cuclark_tpu", "xla")
-        os.makedirs(cache, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
-
-
 def main(argv=None) -> int:
     if argv is None:
         import sys as _sys
@@ -847,12 +846,15 @@ def main(argv=None) -> int:
     if argv and argv[0] in ("--version", "--VERSION"):
         from cuclark_tpu import __version__
         print(f"cuclark-tpu {__version__} "
-              f"(TPU-native rebuild of CuCLARK 1.1 capabilities)")
+              f"(JAX rebuild of CuCLARK 1.1 capabilities)")
         return 0
-    _enable_compile_cache()
+    from cuclark_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser(
         prog="cuclark-tpu",
-        description="TPU-native metagenomic read classifier (CuCLARK capabilities)",
+        description="GPU metagenomic read classifier in JAX (CuCLARK "
+                    "capabilities)",
     )
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -875,10 +877,11 @@ def main(argv=None) -> int:
                    help="reads per device batch; long-read batches "
                         "auto-shrink to the device cell budget [65536]")
     c.add_argument("-d", "--devices", type=int, default=1,
-                   help="number of TPU devices to use; 0 = all available "
-                        "(reads shard over a data axis, DB bucket ranges "
-                        "over a db axis when the table exceeds "
-                        "--max-table-mb) [1]")
+                   help="number of GPUs this process drives; 0 = all "
+                        "visible (reads shard over a data axis, DB bucket "
+                        "ranges over a db axis when the table exceeds "
+                        "--max-table-mb).  One process drives all of its "
+                        "cards; never run two processes on one card [1]")
     c.add_argument("-n", "--threads", type=int, default=1,
                    help="accepted for reference CLI compatibility; host "
                         "packing already overlaps device compute")
@@ -887,8 +890,8 @@ def main(argv=None) -> int:
     c.add_argument("--max-table-mb", type=float, default=None,
                    help="device memory budget for the DB table; larger "
                         "tables stream in bucket-range parts (swap-cycle "
-                        "analog) [default: probed from the device's free "
-                        "HBM minus a reserve]")
+                        "analog) [default: the free part of JAX's device "
+                        "memory pool minus a reserve]")
     c.add_argument("--stream-group", type=int, default=8,
                    help="minimum batches classified per DB-part upload "
                         "cycle when streaming; auto-grows to fill free "
@@ -906,12 +909,19 @@ def main(argv=None) -> int:
     c.add_argument("--coordinator", default=None, metavar="HOST:PORT",
                    help="jax.distributed coordinator address; enables the "
                         "GLOBAL multi-process mesh (one jitted program "
-                        "over every host's chips, db-axis psum over "
-                        "ICI/DCN); each process writes <results>.h<rank>")
+                        "over every process's cards, db-axis psum over "
+                        "NVLink within a host); each process writes "
+                        "<results>.h<rank>.  Run one process per host, or "
+                        "one per card with --local-device-ids; never two "
+                        "processes on one card")
     c.add_argument("--num-processes", type=int, default=None,
                    help="total jax processes in the global mesh")
     c.add_argument("--process-id", type=int, default=None,
                    help="this process's rank in [0, num-processes)")
+    c.add_argument("--local-device-ids", default=None, metavar="I[,J...]",
+                   help="with --coordinator: the cards of this host that "
+                        "this process owns (e.g. 0); required when "
+                        "several processes share a host")
     _add_db_args(c)
     c.set_defaults(fn=cmd_classify)
 

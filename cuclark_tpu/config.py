@@ -54,9 +54,9 @@ class DBConfig:
     # Table layout: "qs" (default) = quotient-compressed 32 B rows with
     # the second hash choice confined to a SMALL stash section appended
     # below the main rows, so a probe costs ONE cold main-table gather
-    # plus one warm stash gather (~1.9x faster than "q4" at >= 1 GB
-    # tables, where every main gather is a DRAM page miss —
-    # BENCHNOTES.md round 3); "q4" = both choices over the full table;
+    # plus one warm stash gather (at GB-scale tables every main gather
+    # misses every cache; the H100 gain over "q4" is not measured);
+    # "q4" = both choices over the full table;
     # "s2" = legacy full-key rows governed by slots/num_choices.
     layout: str = "qs"
     # Host-RAM budget for raw k-mer occurrences during a build; larger
@@ -64,13 +64,13 @@ class DBConfig:
     # out-of-core (the answer to the reference's 146 GB in-RAM mother
     # table, README.md:93-94). None = never spill.
     build_ram_mb: int | None = 4096
-    # qs only: when the Poisson-sized stash would exit the WARM gather
-    # regime (> 2^20 rows = 33.6 MB, measured warm even beside a
-    # 4.3 GB main table — BENCHNOTES round 4), widen the main table by
-    # one bit instead: halving lambda collapses the overflow tail ~9x
-    # (3.3% -> 0.37% of n at lambda 1.91 -> 0.95), trading 2x main
-    # bytes for a stash back at warm speed (292K -> ~444K r/s measured
-    # at the 256M-kmer ladder-3 config).  Disable to minimize memory.
+    # qs only: when the Poisson-sized stash would outgrow
+    # hashdb.WARM_STASH_MAX_BITS (2^20 rows = 33.6 MB, small enough to
+    # stay cached), widen the main table by one bit instead: halving
+    # lambda collapses the overflow tail ~9x (3.3% -> 0.37% of n at
+    # lambda 1.91 -> 0.95), trading 2x main bytes for a small stash.
+    # The H100 speed effect is not measured.  Disable to minimize
+    # memory.
     widen_for_warm_stash: bool = True
 
     def __post_init__(self):
@@ -99,7 +99,7 @@ class ClassifyConfig:
 
     batch_reads:    reads per device batch (padded to this size).
                     Large batches amortize the per-dispatch host<->device
-                    round trip (~20 ms on a remote chip); the pipeline's
+                    round trip; the pipeline's
                     MAX_BATCH_CELLS cap shrinks long-read batches.
     max_read_len:   padded read length in bases per batch bin; longer
                     reads fall into larger bins (pipeline handles

@@ -1,6 +1,6 @@
 """Offline database construction: target-specific canonical k-mers.
 
-The TPU-framework equivalent of the reference DB-build path
+The equivalent of the reference DB-build path
 (makeSpecificTargetSets, src/CuCLARK_hh.hh:690-1329 + EHashtable
 RemoveCommon, src/HashTableStorage_hh.hh:242-292): stream every
 reference genome, extract canonical k-mers, keep exactly those k-mers

@@ -1,9 +1,9 @@
-"""TPU-native k-mer database: flat two-choice bucketed hash table.
+"""Device-resident k-mer database: flat two-choice bucketed hash table.
 
 Replaces the reference's chained host hash table + CSR GPU layout
 (src/hashTable_hh.hh bucket chains; src/CuClarkDB.cu:582-648 prefix-sum
 bucket pointers; src/CuClarkDB.cu:1249-1314 quotient linear scan) with a
-layout designed for TPU HBM gathers:
+layout designed for device-memory row gathers:
 
   table: uint32[NB, 3*S]   rows = [klo x S | khi x S | label x S]
 
@@ -109,18 +109,17 @@ class KmerDB:
           Feistel-mixed (feistel_mix) so the bucket index pins nb_bits of
           the key and only the other word + a 15-bit quotient need
           storing — 32 B aligned rows at C=4, half the gathered bytes
-          and ~5x less HBM per k-mer than s2, exact 64-bit compare via
+          and ~5x less device memory per k-mer than s2, exact 64-bit compare via
           reconstruction.  Requires 17 <= nb_bits <= 32.
       "qs" (default): q4's exact row/meta format, but the choice-1
           buckets hash into a SMALL stash section of NBS = 1<<stash_bits
           rows appended below the main rows (table = uint32
           [NB + NBS, 8]; stash entries quotient against stash_bits).
-          At >= 1 GB tables every random main-row gather is a cold DRAM
-          page miss (~14 ns) while a gather in a <= 67 MB region stays
-          warm (~5 ns), so confining the second choice to the stash
-          turns the probe from two cold gathers into one cold + one
-          warm — ~1.9x at representative DB scale (BENCHNOTES.md
-          round 3).  Requires 17 <= stash_bits <= nb_bits.
+          At GB-scale tables every random main-row gather misses every
+          cache, while gathers in a small region can stay cached, so
+          confining the second choice to the stash turns the probe
+          from two cold gathers into one cold + one warm (the H100
+          gain is not measured).  Requires 17 <= stash_bits <= nb_bits.
     """
 
     k: int
@@ -146,11 +145,11 @@ class KmerDB:
         return self.table.shape[0]
 
     # Main-table size above which the qs probe runs in SPLIT mode (main
-    # and stash as separate gather operands).  Below it the fused
-    # single-array probe is faster — the whole table is in the warm
-    # gather regime anyway (BENCHNOTES.md round 3: fused 25.7 ms vs
-    # split 36.6 ms per chunk at 71 MB; split 37.3 vs fused 57.1 at
-    # 1.1 GB).
+    # and stash as separate gather operands, so the compiler cannot
+    # merge the two takes into one gather over the big array).  Below
+    # it the fused single-array probe is used: a small table is cache
+    # resident anyway, and one gather is one launch.  The value was
+    # tuned on another accelerator; the H100 crossover is not measured.
     SPLIT_MIN_MAIN_MB = 256.0
 
     def use_split_probe(self) -> bool:
@@ -367,8 +366,8 @@ def probe_np_qs(table, nb_bits: int, stash_bits: int, seed: int,
 
 # q4/qs row indices are computed in int32 on device (and the qs stash
 # sits at global rows [NB, NB+NBS)), so NB + NBS must stay below 2^31;
-# nb_bits 30 already addresses a 34 GB main table — beyond any
-# single-device HBM, where db-axis sharding takes over anyway.
+# nb_bits 30 already addresses a 34 GB main table; beyond that, db-axis
+# sharding takes over.
 MAX_NB_BITS_Q = 30
 
 
@@ -407,10 +406,11 @@ def check_q_bits(layout: str, nb_bits: int,
             f"stash_bits={stash_bits}")
 
 
-# Largest stash (rows, log2) still in the WARM gather regime: 2^20
-# rows = 33.6 MB measured at the flat warm rate even beside a 4.3 GB
-# main table; 2^21 = 67 MB is already ~1.5x slower and 2^22 = 134 MB
-# probes at the cold rate (BENCHNOTES round 4 stash sweep).
+# Largest stash (rows, log2) that choose_nb_bits accepts before it
+# widens the main table: 2^20 rows = 33.6 MB, small enough to stay
+# cache-resident beside a GB-scale main table (the H100 has a 50 MB L2).
+# The value was tuned on another accelerator; the H100 crossover is not
+# measured.
 WARM_STASH_MAX_BITS = 20
 
 

@@ -1,6 +1,6 @@
 """Vectorized FASTA/FASTQ scanning and read packing.
 
-The TPU-framework equivalent of the reference's OpenMP record scanner +
+The vectorized equivalent of the reference's OpenMP record scanner +
 container packer (src/CuCLARK_hh.hh:1335-1551 boundary scan;
 :1608-1763 per-batch 2-bit packing).  Instead of per-byte character
 loops across host threads, whole-buffer numpy passes find newlines and

@@ -4,12 +4,12 @@ The reference probes each device's free VRAM, reserves RESERVED MB for
 batch buffers, aborts below 1 GB free, and derives its swap-cycle plan
 `cyclesPerDevice x numDevices x dbPartsPerDevice` from what remains
 (src/CuClarkDB.cu:540-574 planning, :171-175 abort guard,
-src/parameters.hh:45 RESERVED).  The TPU analog asks the PJRT runtime
-(`device.memory_stats()`) how much HBM is actually available, keeps a
-reserve for batch arrays + XLA temporaries, and feeds the result into
-the same two levers the pipeline already has:
+src/parameters.hh:45 RESERVED).  Here the runtime
+(`device.memory_stats()`) says how much of JAX's device memory pool is
+free; a reserve for batch arrays + XLA temporaries comes off, and the
+result feeds the same two levers the pipeline already has:
 
-  - db-axis width on a mesh (bucket ranges resident across chips), and
+  - db-axis width on a mesh (bucket ranges resident across cards), and
   - stream_parts (host->device bucket-range streaming, the swap-cycle
     analog) when even the per-device shard exceeds the budget.
 
@@ -22,45 +22,22 @@ from __future__ import annotations
 
 # Reserve for batch buffers, results, and XLA scratch — the role of the
 # reference's RESERVED = 300-400 MB per device (src/parameters.hh:45).
-RESERVED_MB = 512.0
-
-# When the runtime cannot report memory stats, fall back to the HBM of
-# the device's GENERATION (device_kind substring -> MB), not a single
-# worst-case number: a v5p without memory_stats must still plan a 4 GB
-# table resident rather than stream it 8 ways.  CPU/unknown platforms
-# return None (host memory, no practical table limit).
-_TPU_GENERATION_MB = (
-    # (device_kind substring, HBM MB per chip) — first match wins, so
-    # the "lite" variants must precede their full-size siblings.
-    ("v5 lite", 16384.0),    # v5e: 16 GB
-    ("v5e", 16384.0),
-    ("v5p", 95000.0),        # v5p: 95 GB
-    ("v5", 95000.0),
-    ("v6 lite", 32768.0),    # v6e (Trillium): 32 GB
-    ("v6e", 32768.0),
-    ("v4", 32768.0),         # v4: 32 GB
-    ("v3", 16384.0),
-    ("v2", 8192.0),
-)
-_TPU_FALLBACK_MB = 16384.0
-
-
-def _generation_default_mb(device) -> float:
-    kind = str(getattr(device, "device_kind", "")).lower()
-    for sub, mb in _TPU_GENERATION_MB:
-        if sub in kind:
-            return mb
-    return _TPU_FALLBACK_MB
+# Measured on an H100 (80GB HBM3): a resident 8.6 GB table classifying
+# 65,536-read x 152-base batches peaked 182 MB above the table; scaled
+# to a MAX_BATCH_CELLS batch (3.37x the cells) that is 612 MB.
+RESERVED_MB = 640.0
 
 
 def device_memory_budget_mb(device=None) -> float | None:
     """Usable MB for the resident DB table on one device.
 
-    None means "unbounded / unknown-host" (CPU): keep the table
-    resident.  TPU devices report memory stats via PJRT
-    (bytes_reservable_limit preferred over bytes_limit: it excludes
-    runtime-reserved regions); platforms that don't get their
-    generation's HBM size from device_kind."""
+    None means "unbounded / host memory" (CPU): keep the table
+    resident.  A GPU reports JAX's preallocated memory pool as
+    `bytes_limit` in `memory_stats()` (a reported
+    `bytes_reservable_limit` is preferred: it excludes runtime-reserved
+    regions); the budget is what the pool has free minus RESERVED_MB.
+    A non-CPU device that reports no usable stats raises: guessing its
+    size would either waste the card or run out of memory mid-run."""
     import os
 
     import jax
@@ -76,18 +53,15 @@ def device_memory_budget_mb(device=None) -> float | None:
     platform = getattr(device, "platform", "cpu")
     if platform == "cpu":
         return None
-    stats = None
-    try:
-        stats = device.memory_stats()
-    except Exception:
-        stats = None
-    if stats:
-        limit = stats.get("bytes_reservable_limit") or stats.get(
-            "bytes_limit")
-        in_use = stats.get("bytes_in_use", 0)
-        if limit:
-            return max((limit - in_use) / 1e6 - RESERVED_MB, 64.0)
-    return max(_generation_default_mb(device) * 0.9 - RESERVED_MB, 64.0)
+    stats = device.memory_stats() or {}
+    limit = stats.get("bytes_reservable_limit") or stats.get("bytes_limit")
+    if not limit:
+        raise RuntimeError(
+            f"{platform} device {getattr(device, 'device_kind', '?')!r} "
+            f"reports no memory limit (memory_stats: {sorted(stats)}); "
+            f"pass --max-table-mb or set CUCLARK_DEVICE_MB")
+    in_use = stats.get("bytes_in_use", 0)
+    return max((limit - in_use) / 1e6 - RESERVED_MB, 64.0)
 
 
 def resolve_table_budget_mb(max_table_mb: float | None,

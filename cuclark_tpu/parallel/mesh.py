@@ -7,15 +7,16 @@ round-trips — with one jitted SPMD program over a 2-D device mesh:
 
   axis "db":   hash-table bucket rows range-sharded; each shard probes
                only the buckets it owns (mask, not control flow) and the
-               per-window labels merge with a single psum over ICI.
+               per-window labels merge with a single psum (NVLink
+               between the cards of one host).
                A k-mer hits in at most one shard (keys are unique), so
                summing label integers is an exact merge.
   axis "data": read batches sharded; results stay sharded for per-host
                CSV writing.
 
-When the DB fits aggregate HBM (36 GB over any v5p slice) there are no
-swap cycles at all; host-streaming of bucket ranges remains the
-fallback for DB >> HBM (the C8 analog) by looping this same program
+When the DB fits the cards' aggregate memory there are no swap cycles
+at all; host-streaming of bucket ranges remains the fallback for a DB
+larger than device memory (the C8 analog) by looping this same program
 over range loads.
 """
 
@@ -71,8 +72,9 @@ def make_global_mesh(num_db: int = 1, devices=None) -> Mesh:
     host-major so each process's data rows are contiguous (per-host
     record blocks concatenate in rank order).  num_db must divide the
     per-process device count so the 'db' axis (and its psum) stays
-    within ICI rows; db > local devices would put the reduction on DCN,
-    which works but should be a deliberate choice.  The one allowed
+    within one process's cards; db > local devices would put the
+    reduction on the network between hosts, which works but should be a
+    deliberate choice.  The one allowed
     host-spanning case (num_db == total devices, data axis 1) serves
     replicated-read ShardedClassifier use; the lockstep
     multihost.GlobalClassifier engine needs data divisible by the

@@ -3,17 +3,18 @@
 The reference is single-node multi-GPU only (SURVEY §5); this module is
 the scale-out path it lacks.  Design (How-to-Scale-Your-Model recipe):
 
- - a global 2-D mesh ("data" over hosts x local chips, "db" within or
-   across hosts depending on DB size vs per-host HBM), built from
-   jax.devices() after jax.distributed.initialize();
+ - a global 2-D mesh ("data" over hosts x local cards, "db" within or
+   across hosts depending on DB size vs per-host device memory), built
+   from jax.devices() after jax.distributed.initialize();
  - each host reads only its byte range of the input file and scans
    forward to the first record boundary (the reference's OpenMP
    byte-range scan, src/CuCLARK_hh.hh:1339-1471, applied across hosts
-   over DCN instead of threads);
+   over the network instead of threads);
  - each host packs and feeds only its local shard of every global batch
    (jax.make_array_from_process_local_data), the jitted sharded step
-   runs collectives over ICI/DCN, and each host writes its own ordered
-   CSV shard (concatenated by rank order afterwards).
+   runs collectives over NVLink within a host and the network across
+   hosts, and each host writes its own ordered CSV shard (concatenated
+   by rank order afterwards).
 
 Everything here except `initialize()` is pure logic and unit-tested on
 a single process; the mesh/step reuse cuclark_tpu.parallel.mesh.
@@ -25,17 +26,66 @@ import numpy as np
 
 
 def initialize(coordinator: str | None = None, num_processes: int | None = None,
-               process_id: int | None = None):
-    """jax.distributed bring-up (no-op when single-process)."""
+               process_id: int | None = None,
+               local_device_ids: str | None = None):
+    """jax.distributed bring-up (no-op when single-process).
+
+    local_device_ids ("0" or "0,1"): the cards of this host that this
+    process owns.  Without it every process opens every visible card
+    and JAX preallocates most of each card's memory, so a second process
+    on the same host fails for want of memory.  Several processes on one
+    host therefore must each name disjoint cards (or be given disjoint
+    CUDA_VISIBLE_DEVICES); otherwise this raises before any card is
+    opened."""
     import jax
 
     if num_processes is None or num_processes <= 1:
         return
+    ids = (None if local_device_ids is None
+           else [int(i) for i in str(local_device_ids).split(",")])
     jax.distributed.initialize(
         coordinator_address=coordinator,
         num_processes=num_processes,
         process_id=process_id,
+        local_device_ids=ids,
     )
+    if ids is not None or _cpu_only(jax.config.jax_platforms):
+        return
+    import os
+
+    hosts = _exchange_hostnames(num_processes, process_id)
+    check_one_process_per_card(hosts, process_id,
+                               os.environ.get("CUDA_VISIBLE_DEVICES"))
+
+
+def _cpu_only(platforms) -> bool:
+    return bool(platforms) and set(str(platforms).split(",")) == {"cpu"}
+
+
+def _exchange_hostnames(num_processes: int, process_id: int) -> list[str]:
+    """Every process's hostname, through the coordinator's key-value
+    store (no device is touched)."""
+    import socket
+
+    from jax._src import distributed
+
+    client = distributed.global_state.client
+    client.key_value_set(f"cuclark/host/{process_id}", socket.gethostname())
+    return [client.blocking_key_value_get(f"cuclark/host/{i}", 120_000)
+            for i in range(num_processes)]
+
+
+def check_one_process_per_card(hosts: list[str], process_id: int,
+                               cuda_visible: str | None) -> None:
+    """Refuse a launch where this process shares its host with another
+    process and nothing splits the host's cards between them."""
+    shared = sum(h == hosts[process_id] for h in hosts)
+    if shared > 1 and not cuda_visible:
+        raise ValueError(
+            f"{shared} processes share host {hosts[process_id]!r}, and "
+            f"each would open every card on it; give each process its "
+            f"own cards with --local-device-ids (e.g. one card each), or "
+            f"run one process per host")
 
 
 def host_byte_range(file_size: int, num_hosts: int, host_id: int):

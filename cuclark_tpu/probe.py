@@ -1,6 +1,6 @@
 """Device-side hash table probe.
 
-The TPU analog of the reference's queryElement device function
+The device analog of the reference's queryElement function
 (src/CuClarkDB.cu:1249-1314).  Where the GPU does divmod-by-HTSIZE,
 a bucket-pointer chase, and a data-dependent linear scan of sorted
 quotients, this does: mask-based bucketing, one contiguous row gather
@@ -26,15 +26,15 @@ def spread_invalid(chi, clo, valid):
     """Replace invalid windows' k-mers with per-lane counters.
 
     All-padding windows otherwise produce ONE identical garbage k-mer,
-    so every invalid lane gathers the SAME bucket row — and repeated-row
-    gathers measured 2.3x SLOWER than distinct rows on TPU (the gather
-    engine serializes same-row traffic; see BENCHNOTES.md).  Spreading
-    the dead lanes across distinct buckets makes padding cost the flat
-    per-row rate.  Matches on spread lanes are impossible in practice
+    so every invalid lane gathers the SAME bucket row.  Spreading the
+    dead lanes across distinct buckets keeps padding from concentrating
+    the gather's traffic on one row (a hardware whose gather serializes
+    same-row requests pays for that; whether the H100 does is not
+    measured).  Matches on spread lanes are impossible in practice
     (full-key compare) and masked out by `valid` downstream anyway."""
     # GLOBAL linear lane index: distinct across every axis, not just
     # the last (per-axis iota would collapse batched >=3-D inputs'
-    # padding lanes onto repeated k-mers — the slow-gather pathology
+    # padding lanes onto repeated k-mers — the repeated-row traffic
     # this function exists to prevent)
     iota = jax.lax.iota(jnp.uint32, chi.size).reshape(chi.shape)
     chi = jnp.where(valid, chi, iota)
@@ -45,13 +45,13 @@ def spread_invalid(chi, clo, valid):
 def _spread_oob(bloc, in_range, local: int):
     """Redirect out-of-shard-range lanes to DISTINCT in-bounds rows.
 
-    A plain clip sends every out-of-range lane to row 0 or local-1, and
-    repeated-row gathers measured 2.3x slower than distinct rows (the
-    gather engine serializes same-row traffic — BENCHNOTES.md).  On a
-    db-sharded mesh most lanes of every shard are out of range, so the
-    clamp would put the whole probe on the slow path; spreading the
-    dead lanes across the shard keeps them at the flat per-row rate.
-    Matches on redirected lanes are masked by `in_range` downstream."""
+    A plain clip sends every out-of-range lane to row 0 or local-1.  On
+    a db-sharded mesh most lanes of every shard are out of range, so the
+    clamp would aim most of the probe's gathers at two rows; spreading
+    the dead lanes across the shard keeps the traffic on distinct rows
+    (the same reasoning as spread_invalid; the H100 effect is not
+    measured).  Matches on redirected lanes are masked by `in_range`
+    downstream."""
     iota = jax.lax.iota(jnp.int32, bloc.size).reshape(bloc.shape)
     return jnp.where(in_range, bloc, iota % jnp.int32(local))
 
@@ -104,10 +104,9 @@ def probe(table, nb_bits: int, slots: int, num_choices: int, khi, klo,
         (device-side [NBS_local, 8]); None = fused mode, `table` holds
         main+stash rows concatenated.  Split mode keeps the stash a
         distinct gather operand so XLA cannot merge the two takes into
-        one cold gather over the big array — required to realize the
-        warm-stash advantage at GB-scale main tables (BENCHNOTES.md
-        round 3: fused 57 ms vs split 37 ms per chunk at 1 GB; fused
-        wins below ~100 MB, so small tables stay fused).
+        one gather over the big array, and the stash side keeps reading
+        a small, cache-friendly region (see
+        hashdb.KmerDB.SPLIT_MIN_MAIN_MB for when it is used).
     stash_start/nbs_local: shard range of `stash` when it is sharded.
     skip_stash: qs split streaming — probe `table` as MAIN rows only
         (this part carries no stash rows; another part's call covers
@@ -157,13 +156,13 @@ def probe(table, nb_bits: int, slots: int, num_choices: int, khi, klo,
 
 def _probe_qs(table, nb_bits: int, stash_bits: int, seed: int, khi, klo,
               bucket_start=None, nb_local: int | None = None):
-    """qs-layout probe: ONE cold main-table gather + one warm stash
-    gather (stash = the NBS rows appended at [NB, NB+NBS)).
+    """qs-layout probe: one main-table gather + one stash gather (stash
+    = the NBS rows appended at [NB, NB+NBS)).
 
-    At representative DB scale every random main-row gather is a DRAM
-    page miss (~14 ns on v5e) while gathers confined to the small stash
-    stay warm (~5 ns), so this costs ~20 ns/window vs q4's two cold
-    gathers at ~28 ns (BENCHNOTES.md round 3).  Row/meta format and the
+    At representative DB scale a random main-row gather misses every
+    cache, while gathers confined to the small stash can stay cached,
+    so a window costs one cold and one warm gather instead of q4's two
+    cold ones (H100 cost not measured).  Row/meta format and the
     exact 64-bit reconstruct-compare are identical to q4; only the
     choice-1 bucket space differs.  Sharding: indices are GLOBAL row
     numbers over main+stash, so the same bucket_start/nb_local range
@@ -200,10 +199,10 @@ def _probe_qs_split(main, stash, nb_bits: int, stash_bits: int, seed: int,
                     stash_start=None, nbs_local: int | None = None):
     """qs split-mode probe: main and stash as separate gather operands.
 
-    One cold gather on the big main table + one warm gather on the
-    small stash array — ~1.5x the fused probe at GB-scale main tables,
-    where XLA would otherwise combine both takes into one cold gather
-    (BENCHNOTES.md round 3).  Sharding: each operand carries its own
+    One gather on the big main table + one on the small stash array,
+    kept as separate operands so XLA cannot combine both takes into one
+    gather over the big array (the H100 gain over the fused probe is
+    not measured).  Sharding: each operand carries its own
     (start, local-rows) range with mask-out-of-range semantics, so both
     arrays can be row-sharded over the db mesh axis and the psum merge
     stays exact.  stash=None probes the main side only (split-mode
@@ -237,9 +236,8 @@ def _probe_q4(table, nb_bits: int, seed: int, khi, klo,
               bucket_start=None, nb_local: int | None = None):
     """q4-layout probe: one 32 B aligned row gather per hash choice and
     an exact 64-bit reconstruct-compare against quotient-compressed
-    entries (see hashdb.KmerDB).  Measured ~12.9 ns/probe on v5e vs
-    ~19-21 for the s2 full-key rows — aligned 32 B rows gather at the
-    platform floor and both takes pipeline (BENCHNOTES.md)."""
+    entries (see hashdb.KmerDB): aligned 32 B rows, half the bytes of
+    the s2 full-key rows per gather."""
     from cuclark_tpu.hashdb import feistel_mix
 
     shape = khi.shape

@@ -1,11 +1,12 @@
 """64-bit integer emulation as (hi, lo) uint32 pairs.
 
-TPU vector units and Pallas kernels are 32-bit native; XLA's s64 on TPU
-is itself emulated and unavailable inside Pallas.  All k-mer math in the
-compute path therefore runs on explicit (hi, lo) uint32 pairs — shifts
-with static amounts, bitwise ops, and comparisons — which lower to plain
-VPU ops.  Host-side code uses real numpy uint64 and converts at the
-boundary.
+All k-mer math in the compute path runs on explicit (hi, lo) uint32
+pairs — shifts with static amounts, bitwise ops, and comparisons — so
+the device program needs no 64-bit integers: JAX's x64 mode is a
+process-wide switch, and 32-bit lanes lower to plain vector ops on any
+backend.  Whether native 64-bit integers would be faster on the H100 is
+not measured.  Host-side code uses real numpy uint64 and converts at
+the boundary.
 
 A "pair" is a plain tuple (hi, lo) of equal-shape uint32 arrays.
 """

@@ -3,7 +3,7 @@
 A direct, slow transcription of the reference *semantics* (not code):
 string-based k-mer walk, canonicalization, dict database, ascending-
 index strict-greater best/second scan — used as ground truth for the
-vectorized TPU implementation.
+vectorized device implementation.
 
 Semantics sources (file:line in /root/reference):
  - encoding A=3 C=2 G=1 T=0: src/kmersConversion.cc:49-68

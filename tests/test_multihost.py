@@ -648,3 +648,32 @@ def test_record_aligners_match_bruteforce():
     for off in range(len(fq_buf) + 1):
         assert multihost.align_to_fastq_record(fq_buf, off) \
             == brute_fastq(fq_buf, off), off
+
+
+@pytest.mark.parametrize("hosts,rank,visible,refused", [
+    (["a", "a"], 0, None, True),      # two processes, one host, no split
+    (["a", "a"], 1, "", True),
+    (["a", "a"], 0, "0", False),      # CUDA_VISIBLE_DEVICES splits cards
+    (["a", "b"], 0, None, False),     # one process per host
+    (["a", "b", "a", "b"], 3, None, True),
+    (["a"], 0, None, False),
+])
+def test_one_process_per_card(hosts, rank, visible, refused):
+    """Processes that share a host must not share its cards."""
+    from cuclark_tpu.parallel.multihost import check_one_process_per_card
+
+    if refused:
+        with pytest.raises(ValueError, match="--local-device-ids"):
+            check_one_process_per_card(hosts, rank, visible)
+    else:
+        check_one_process_per_card(hosts, rank, visible)
+
+
+@pytest.mark.parametrize("platforms,cpu_only", [
+    ("cpu", True), (None, False), ("", False), ("cuda", False),
+    ("cpu,cuda", False),
+])
+def test_cpu_only_platforms(platforms, cpu_only):
+    from cuclark_tpu.parallel.multihost import _cpu_only
+
+    assert _cpu_only(platforms) is cpu_only

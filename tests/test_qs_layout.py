@@ -2,7 +2,7 @@
 cross-layout equivalence.  The layout exists because at GB-scale every
 random main-row gather is a cold DRAM page miss, so the second hash
 choice is confined to a small stash section appended below the main
-rows (one cold + one warm gather per probe — BENCHNOTES.md round 3)."""
+rows (one cold + one warm gather per probe)."""
 
 import numpy as np
 
